@@ -8,7 +8,7 @@ PY ?= python
 tests:
 	$(PY) -m pytest tests/ -q -m "not slow"
 
-# the whole pyramid, including slow integration/Pallas-interpret tests
+# the whole pyramid, including slow integration tests
 tests-all:
 	$(PY) -m pytest tests/ -q
 
@@ -28,7 +28,7 @@ bench-e2e:
 # build the native loader explicitly (otherwise built on first use)
 native:
 	g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread \
-	    -o bild_tpu/native/_loader.so bild_tpu/native/loader.cpp
+	    -o bild_jax/native/_loader.so bild_jax/native/loader.cpp
 
 # sphinx when available; otherwise the self-contained autodoc builder
 # (tools/docgen.py), which reads the same docs/*.rst sources and fails on
@@ -39,4 +39,4 @@ docs:
 	    || $(PY) tools/docgen.py --src docs --out docs/_build/html
 
 clean:
-	rm -rf bild_tpu/native/_loader.so **/__pycache__ .pytest_cache docs/_build
+	rm -rf bild_jax/native/_loader.so build .jax_cache **/__pycache__ .pytest_cache docs/_build

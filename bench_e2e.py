@@ -7,7 +7,7 @@ are written as JSON (one dict per config) to ``--out`` and printed.
 
 Configs (BASELINE.md "North-star targets"):
   2  adaptive `sample` on one 2-locus trajectory (T=100, 2-state Rouse),
-     plus the on-TPU f32-kernel vs f64-oracle parity check
+     plus the on-device f32-kernel vs f64-oracle parity check
   3  128 synthetic 3-d dual-color trajectories, joint lockstep inference
      (throughput metric: trajectories/s warm)
   4  3-state model, T=1000 frames, batched lockstep AMIS
@@ -54,9 +54,9 @@ def _switch_accuracy(best_k, truths):
 def config2():
     """Adaptive single-trajectory inference + kernel parity artifact."""
     import jax
-    import bild_tpu as bild
-    from bild_tpu.models import MultiStateRouse
-    from bild_tpu.ops.oracle import msrouse_logL_numpy
+    import bild_jax as bild
+    from bild_jax.models import MultiStateRouse
+    from bild_jax.ops.oracle import msrouse_logL_numpy
 
     rng = np.random.default_rng(2)
     model = MultiStateRouse(20, 1.0, 5.0, d=3, localization_error=0.1)
@@ -66,7 +66,7 @@ def config2():
     traj = model.trajectory_from_loopingprofile(truth, key=jax.random.key(42))
 
     # device-kernel vs f64-oracle parity (BASELINE.md line 35: 1e-6 rtol
-    # target; on-TPU f32 measured here, exact-f64 parity covered by CI)
+    # target; on-device f32 measured here, exact-f64 parity covered by CI)
     profiles = rng.integers(0, 2, size=(64, 100))
     dev = np.asarray(model.logL_batch(profiles, traj), dtype=float)
     Bs, Gs, Sigs, M0s, C0s = (np.asarray(a, dtype=np.float64) for a in
@@ -100,7 +100,7 @@ def config2():
 
 def _lockstep(model, truths, key, **kw):
     import jax
-    from bild_tpu.parallel import sample_batch
+    from bild_jax.parallel import sample_batch
 
     batch = model.trajectories_from_loopingprofiles(truths, key=jax.random.key(0))
 
@@ -117,7 +117,7 @@ def _lockstep(model, truths, key, **kw):
 def config3():
     """128-trajectory joint lockstep inference (T=100, 3-d, 2-state)."""
     import jax
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
 
     rng = np.random.default_rng(3)
     model = MultiStateRouse(20, 1.0, 5.0, d=3, localization_error=0.1)
@@ -138,7 +138,7 @@ def config3():
 def config4():
     """3-state model, T=1000, batched lockstep AMIS."""
     import jax
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
 
     rng = np.random.default_rng(4)
     model = MultiStateRouse(20, 1.0, 5.0, d=3,
@@ -173,9 +173,9 @@ def config5(postproc=False):
     reported profiles are under the sampled posterior).
     """
     import jax
-    from bild_tpu.models import MultiStateRouse
-    from bild_tpu.parallel import sample_batch
-    from bild_tpu.postproc import optimize_boundary_batch
+    from bild_jax.models import MultiStateRouse
+    from bild_jax.parallel import sample_batch
+    from bild_jax.postproc import optimize_boundary_batch
 
     rng = np.random.default_rng(5)
     model = MultiStateRouse(20, 1.0, 5.0, d=3, localization_error=0.1)
@@ -222,8 +222,8 @@ def config5(postproc=False):
 def config6():
     """GenericGaussianModel dataset inference (device interval tables)."""
     import jax
-    from bild_tpu.models import GenericGaussianModel as GGM
-    from bild_tpu.parallel import sample_batch, stack_trajectories
+    from bild_jax.models import GenericGaussianModel as GGM
+    from bild_jax.parallel import sample_batch, stack_trajectories
 
     rng = np.random.default_rng(6)
     model = GGM([
@@ -260,14 +260,14 @@ def config6():
 def config7():
     """GGM long-T: T=1000 banded interval tables (T_band=128), B=16."""
     import jax
-    from bild_tpu.models import GenericGaussianModel as GGM
+    from bild_jax.models import GenericGaussianModel as GGM
 
     rng = np.random.default_rng(7)
     model = GGM([
         [(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.1, 0)],
         [(GGM.MSD_function_twoLocusRouse(G=0.2, J=1.0), 0.1, 0)],
     ], T_band=128)
-    from bild_tpu.parallel import sample_batch, stack_trajectories
+    from bild_jax.parallel import sample_batch, stack_trajectories
     truths = _truth_profiles(rng, 16, 1000, 2)
     trajs = [model.trajectory_from_loopingprofile(t, rng=rng)
              for t in truths]
@@ -299,19 +299,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", default="2,3,4,6,7")
     ap.add_argument("--out", default="PERF.json")
-    ap.add_argument("--matmul", default="auto",
-                    choices=("auto", "exact", "split", "split_cov"),
-                    help="Rouse-kernel matmul mode (config.set_rouse_matmul);"
-                         " 'auto' (the shipped default) runs the split-bf16"
-                         " tier on the lockstep dataset path and exact"
-                         " elsewhere (DESIGN.md 7g)")
     args = ap.parse_args()
 
-    from bild_tpu.config import enable_compilation_cache, set_rouse_matmul
+    import jax
+    from bild_jax.config import enable_compilation_cache
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        raise SystemExit("bench_e2e.py measures an accelerator; JAX found "
+                         "only the CPU")
     enable_compilation_cache()
-    set_rouse_matmul(args.matmul)
-    # shipped defaults get plain result keys; explicit tiers are suffixed
-    suffix = "" if args.matmul == "auto" else f"_{args.matmul}"
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
 
     runners = {"2": config2, "3": config3, "4": config4, "5": config5,
                "5p": lambda: config5(postproc=True), "6": config6,
@@ -321,10 +319,10 @@ def main():
         if c not in runners:
             raise SystemExit(f"unknown config {c!r}; valid configs: "
                              f"{', '.join(runners)}")
-        print(f"== config {c}{suffix} ==", flush=True)
+        print(f"== config {c} ==", flush=True)
         r = runners[c]()
-        r["matmul"] = args.matmul
-        results[c + suffix] = r
+        r["device"] = device
+        results[c] = r
         print(json.dumps(r), flush=True)
 
     with open(args.out, "w") as f:

@@ -1,35 +1,38 @@
 """
-bild_tpu — TPU-native Bayesian Inference of Looping Dynamics.
+The package's former import name, kept as an alias of `bild_jax`.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
-OpenTrajectoryAnalysis/bild (Gabriele, Brandao, Grosse-Holz et al., Science
-376, 2022): given a particle-tracking trajectory, infer the posterior over
-piecewise-constant state profiles ("looping profiles") of a switching
-linear-Gaussian physical model, via AMIS with an information-gain driven
-outer loop over switch counts.
-
-Public surface mirrors the reference (``bild/__init__.py:12-17``):
-``sample``, ``SamplingResults``, ``Loopingprofile``, plus the submodules
-``models``, ``amis``, ``postproc``, ``stats``. TPU-native additions live in
-``bild_tpu.parallel`` (multi-chip dataset inference), ``bild_tpu.ops``
-(batched kernels), and ``bild_tpu.fit`` (gradient-based calibration of the
-physical model parameters — enabled by the differentiable likelihood; the
-reference's compiled kernel has no analog).
+``import`` of this name or of any submodule under it returns the `bild_jax`
+module object itself (one copy of every module and of its state), and
+``python -m`` of this name runs the `bild_jax` command line.
 """
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from .profiles import Loopingprofile, state_probabilities  # noqa: F401
-from .trajectory import Trajectory, make_trajectory  # noqa: F401
-from . import profiles as util  # noqa: F401  (reference calls this module `util`)
-from . import models  # noqa: F401
-from . import physics  # noqa: F401
-from . import ops  # noqa: F401
-from . import amis  # noqa: F401
-from . import io  # noqa: F401
-from . import parallel  # noqa: F401
-from . import postproc  # noqa: F401
-from . import stats  # noqa: F401
-from . import fit  # noqa: F401
-from .infer import sample, SamplingResults  # noqa: F401
-from .infer.choice import ChoiceSampler  # noqa: F401
+import bild_jax
+from bild_jax import *  # noqa: F401,F403
 
-__version__ = "0.1.0"
+_TARGET = "bild_jax"
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<alias>.<sub>`` to the already-importable
+    ``bild_jax.<sub>``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(__name__ + ".") and name != __name__ + ".__main__":
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_TARGET + spec.name[len(__name__):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the shared module
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())

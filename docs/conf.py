@@ -2,8 +2,8 @@
 documentation style as the reference's doc/sphinx). Build with `make docs`
 where sphinx is installed."""
 
-project = "bild_tpu"
-author = "bild_tpu developers"
+project = "bild_jax"
+author = "bild_jax developers"
 
 extensions = [
     "sphinx.ext.autodoc",

@@ -5,7 +5,7 @@ likelihood, then run inference with the calibrated model.
 This closes the loop the reference leaves to external tools (MSD fitting
 with ``bayesmsd`` before BILD): here the BILD likelihood itself is
 differentiable, so the same kernel both scores looping profiles and fits
-``(D, k, localization_error)``. See `bild_tpu.fit` and DESIGN.md section 7k.
+``(D, k, localization_error)``. See `bild_jax.fit` and DESIGN.md section 7k.
 
 Run:  python examples/calibrate_params.py
 """
@@ -17,9 +17,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-import bild_tpu as bild
-from bild_tpu.fit import fit_rouse
-from bild_tpu.parallel import sample_batch
+import bild_jax as bild
+from bild_jax.fit import fit_rouse
+from bild_jax.parallel import sample_batch
 
 
 def main():

@@ -3,7 +3,7 @@ Example: inference with the GenericGaussianModel (GGM).
 
 The GGM describes each looping state as an arbitrary Gaussian process given
 by its MSD — useful when the Rouse picture doesn't apply or when you want a
-model-agnostic check (reference ``bild/models.py:536-728``). bild_tpu runs
+model-agnostic check (reference ``bild/models.py:536-728``). bild_jax runs
 it device-batched through a precomputed interval table (DESIGN.md §4b).
 
 Run:  python examples/ggm_model.py
@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-import bild_tpu as bild
-from bild_tpu.models import GenericGaussianModel as GGM
-from bild_tpu.parallel import sample_dataset
+import bild_jax as bild
+from bild_jax.models import GenericGaussianModel as GGM
+from bild_jax.parallel import sample_dataset
 
 
 def main():
@@ -62,7 +62,7 @@ def main():
     # MSD-parameter calibration through the differentiable likelihood —
     # the reference needs an external bayesmsd fit here, which cannot
     # condition on the looping profile (see fit_ggm's docstring)
-    from bild_tpu.fit import fit_ggm
+    from bild_jax.fit import fit_ggm
 
     spec = [  # start ~40% off the truth
         [("twoLocusRouse", dict(G=1.4, J=3.5), 0.1, 0)],

@@ -17,8 +17,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-import bild_tpu as bild
-from bild_tpu.parallel import make_mesh, sample_dataset
+import bild_jax as bild
+from bild_jax.parallel import make_mesh, sample_dataset
 
 
 def synthesize(model, B=64, T=100, seed=0):
@@ -77,7 +77,7 @@ def main(csv_path=None):
     # dataset-level dwell-time statistics: censored samples per state ->
     # exponential mean with confidence interval (stats.dwell_times bridges
     # inferred profiles to the survival estimators)
-    from bild_tpu import stats
+    from bild_jax import stats
     for s in range(model.nStates):
         dur, cen = stats.dwell_times(profiles, s)
         if np.count_nonzero(~cen):

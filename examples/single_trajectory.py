@@ -12,7 +12,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-import bild_tpu as bild
+import bild_jax as bild
 
 
 def main():

@@ -1,5 +1,5 @@
 """
-Batched adaptive scheduler (`bild_tpu.infer.adaptive`).
+Batched adaptive scheduler (`bild_jax.infer.adaptive`).
 
 The load-bearing test is decision parity: `decide_batch` fed the same
 evidence states and the same Monte-Carlo noise draws as the host
@@ -14,15 +14,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bild_tpu.infer.adaptive import decide_batch, sample_batch_adaptive
-from bild_tpu.infer.choice import ChoiceSampler
-from bild_tpu.models import MultiStateRouse
-from bild_tpu.parallel import sample_batch
+from bild_jax.infer.adaptive import decide_batch, sample_batch_adaptive
+from bild_jax.infer.choice import ChoiceSampler
+from bild_jax.models import MultiStateRouse
+from bild_jax.parallel import sample_batch
 
 
 def host_decision(logE, dlogE, N, dE, k_lookahead, k_max, certainty, noise):
     """The reference decision protocol, transcribed from
-    `bild_tpu.infer.core.sample.determine_next_step` (itself matching
+    `bild_jax.infer.core.sample.determine_next_step` (itself matching
     ``bild/core.py:138-192``) for a single trajectory whose samplers'
     evidence state is (logE, dlogE, N) over the opened k values."""
     k_new = len(logE)
@@ -163,8 +163,8 @@ def test_adaptive_matches_lockstep_quality(rouse_setup):
 def test_adaptive_respects_lengths():
     model = MultiStateRouse(8, 1.0, 5.0, d=2, localization_error=0.1)
     rng = np.random.default_rng(4)
-    from bild_tpu.trajectory import make_trajectory
-    from bild_tpu.parallel import stack_trajectories
+    from bild_jax.trajectory import make_trajectory
+    from bild_jax.parallel import stack_trajectories
     trajs = [make_trajectory(rng.standard_normal((T, 2))) for T in (3, 40)]
     batch = stack_trajectories(trajs)
     res = sample_batch_adaptive(model, batch, k_max=4, N=16,
@@ -202,8 +202,8 @@ def test_adaptive_reallocate_off(rouse_setup):
 
 def test_sample_dataset_adaptive_schedule(rouse_setup, tmp_path):
     model, batch, profs = rouse_setup
-    from bild_tpu.parallel import sample_dataset
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.parallel import sample_dataset
+    from bild_jax.trajectory import make_trajectory
     trajs = [make_trajectory(np.asarray(batch.data[i]))
              for i in range(batch.B)]
     kw = dict(k_max=3, N=32, schedule="adaptive", init_steps=3,

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 from scipy import stats
 from conftest import logsumexp_safe as logsumexp
 
-import bild_tpu as bild
-from bild_tpu.amis import Dirichlet, CFC, FixedkSampler
-from bild_tpu import Trajectory
-from bild_tpu.models import FactorizedModel
+import bild_jax as bild
+from bild_jax.amis import Dirichlet, CFC, FixedkSampler
+from bild_jax import Trajectory
+from bild_jax.models import FactorizedModel
 
 
 class TestDirichlet:
@@ -209,7 +209,7 @@ class TestFixedkSampler:
         same convention as the evidence sum in amis_update. Regression:
         the lockstep marginals path fed unmasked log-weights and a single
         such sample turned the whole (n, T) posterior NaN."""
-        from bild_tpu.amis.sampler import _marginal_posterior
+        from bild_jax.amis.sampler import _marginal_posterior
 
         ss = jnp.asarray([[0.5, 0.5], [0.25, 0.75]])
         th = jnp.asarray([[0, 1], [1, 0]], dtype=jnp.int32)

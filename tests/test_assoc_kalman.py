@@ -4,10 +4,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bild_tpu import Trajectory
-from bild_tpu.models import MultiStateRouse
-from bild_tpu.ops.kalman import msrouse_logL_batch
-from bild_tpu.ops.assoc_kalman import msrouse_logL_assoc
+from bild_jax import Trajectory
+from bild_jax.models import MultiStateRouse
+from bild_jax.ops.kalman import msrouse_logL_batch
+from bild_jax.ops.assoc_kalman import msrouse_logL_assoc
 
 
 def _args(model, traj, profiles):
@@ -50,8 +50,8 @@ def test_time_sharded_mesh_parity(rng):
     # the stated regime of the assoc filter: frames sharded across a mesh
     # (virtual 8-CPU here); parity vs the sequential batched kernel
     import jax
-    from bild_tpu.models import MultiStateRouse
-    from bild_tpu.parallel import make_mesh
+    from bild_jax.models import MultiStateRouse
+    from bild_jax.parallel import make_mesh
 
     model = MultiStateRouse(8, 1.0, 4.0, d=2, localization_error=0.3)
     T = 64
@@ -81,7 +81,7 @@ def test_time_sharded_T8192(rng):
     ``MultiStateRouse.logL_batch_assoc`` and DESIGN.md, measured by
     ``tools/assoc_crossover.py``.)
     """
-    from bild_tpu.parallel import make_mesh
+    from bild_jax.parallel import make_mesh
 
     model = MultiStateRouse(8, 1.0, 3.0, d=1, localization_error=0.2)
     T = 8192

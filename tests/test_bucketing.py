@@ -1,9 +1,9 @@
 """Ragged-length bucketing for dataset batches."""
 import numpy as np
 
-from bild_tpu import Trajectory
-from bild_tpu.parallel import stack_trajectories
-from bild_tpu.parallel.batch import bucket_trajectories
+from bild_jax import Trajectory
+from bild_jax.parallel import stack_trajectories
+from bild_jax.parallel.batch import bucket_trajectories
 
 
 def test_bucket_trajectories():

@@ -4,10 +4,10 @@ import pytest
 import jax
 from scipy import stats as sp_stats
 
-import bild_tpu as bild
-from bild_tpu import Trajectory
-from bild_tpu.models import FactorizedModel
-from bild_tpu.utils import save_results, load_results
+import bild_jax as bild
+from bild_jax import Trajectory
+from bild_jax.models import FactorizedModel
+from bild_jax.utils import save_results, load_results
 
 
 @pytest.mark.slow
@@ -49,7 +49,7 @@ def test_roundtrip(tmp_path):
 def test_strict_numerics_context():
     import jax
     import jax.numpy as jnp
-    from bild_tpu.utils import strict_numerics
+    from bild_jax.utils import strict_numerics
 
     f = jax.jit(jnp.log)
     with strict_numerics():

@@ -2,7 +2,7 @@
 pinned against bild/choicesampler.py semantics)."""
 import numpy as np
 
-from bild_tpu import ChoiceSampler
+from bild_jax import ChoiceSampler
 
 
 def _cs(muhat, dE=0.0, N=None, rng=None, **kw):

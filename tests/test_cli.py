@@ -1,4 +1,4 @@
-"""CLI entry point (`python -m bild_tpu`): end-to-end on a tiny CSV.
+"""CLI entry point (`python -m bild_jax`): end-to-end on a tiny CSV.
 
 The reference is library-only; the CLI is this package's batteries-included
 dataset path, so it gets the same in-process integration treatment as
@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import pytest
 
-from bild_tpu.__main__ import build_parser, main
-from bild_tpu.models import MultiStateRouse
+from bild_jax.__main__ import build_parser, main
+from bild_jax.models import MultiStateRouse
 
 
 def _write_csv(path, trajs):
@@ -54,7 +54,7 @@ def test_parser_defaults():
 
 
 def test_parse_looppositions():
-    from bild_tpu.__main__ import _parse_looppositions as parse
+    from bild_jax.__main__ import _parse_looppositions as parse
     assert parse("none;0,-1") == (None, (0, -1))
     assert parse("none;0,-1;0,10") == (None, (0, -1), (0, 10))
     assert parse("none;0,-1,0.5") == (None, (0, -1, 0.5))

@@ -6,11 +6,11 @@ import pytest
 import jax
 from scipy import stats as sp_stats
 
-import bild_tpu as bild
-from bild_tpu import Trajectory
-from bild_tpu.amis import FixedkSampler
-from bild_tpu.models import FactorizedModel
-from bild_tpu.parallel import stack_trajectories, sample_batch
+import bild_jax as bild
+from bild_jax import Trajectory
+from bild_jax.amis import FixedkSampler
+from bild_jax.models import FactorizedModel
+from bild_jax.parallel import stack_trajectories, sample_batch
 
 
 @pytest.mark.slow

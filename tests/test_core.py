@@ -6,9 +6,9 @@ import jax
 from scipy import stats as sp_stats
 from conftest import logsumexp_safe as logsumexp
 
-import bild_tpu as bild
-from bild_tpu import Trajectory
-from bild_tpu.models import FactorizedModel
+import bild_jax as bild
+from bild_jax import Trajectory
+from bild_jax.models import FactorizedModel
 
 
 def _setup():
@@ -108,7 +108,7 @@ class TestPostproc:
         np.testing.assert_array_equal(out[:], flat[:])
 
     def test_optimize_boundary_batch_matches_single(self):
-        from bild_tpu.parallel import stack_trajectories
+        from bild_jax.parallel import stack_trajectories
 
         profiles = np.array([
             [0, 1, 1, 1, 0, 0, 0, 1],   # converges
@@ -189,7 +189,7 @@ class TestStats:
 def test_sample_keyboard_interrupt_returns_partial_results(monkeypatch):
     """Manual interruption mid-inference still returns a valid (partial)
     SamplingResults — reference behavior `bild/core.py:231-236`."""
-    from bild_tpu.amis import sampler as sampler_mod
+    from bild_jax.amis import sampler as sampler_mod
 
     traj, model = _setup()
     calls = {"n": 0}

@@ -11,11 +11,11 @@ import pytest
 import jax
 from scipy import stats as sp_stats
 
-import bild_tpu as bild
-from bild_tpu import Trajectory, make_trajectory
-from bild_tpu.models import FactorizedModel
-from bild_tpu.models.base import MultiStateModel
-from bild_tpu.profiles import Loopingprofile
+import bild_jax as bild
+from bild_jax import Trajectory, make_trajectory
+from bild_jax.models import FactorizedModel
+from bild_jax.models.base import MultiStateModel
+from bild_jax.profiles import Loopingprofile
 
 
 def _model():
@@ -74,14 +74,14 @@ class TestLoaderEdges:
         path.write_text("\n".join(lines) + "\n")
 
     def test_two_locus_needs_even_columns(self, tmp_path):
-        from bild_tpu.io import load_trajectories_csv_python
+        from bild_jax.io import load_trajectories_csv_python
         p = tmp_path / "odd.csv"
         self._write(p, ["0,0,1.0,2.0,3.0", "0,1,1.5,2.5,3.5"])
         with pytest.raises(ValueError, match="even number"):
             load_trajectories_csv_python(p, two_locus=True)
 
     def test_max_frames_guard(self, tmp_path):
-        from bild_tpu.io import load_trajectories_csv_python
+        from bild_jax.io import load_trajectories_csv_python
         p = tmp_path / "long.csv"
         self._write(p, ["0,0,1.0", "0,99,2.0"])
         with pytest.raises(ValueError, match="max_frames"):
@@ -90,12 +90,12 @@ class TestLoaderEdges:
     def test_missing_file_raises_precise_error(self, tmp_path):
         # the native parser reports failure by status; the fallback python
         # parse then produces the precise host error
-        from bild_tpu.io import load_trajectories_csv
+        from bild_jax.io import load_trajectories_csv
         with pytest.raises(FileNotFoundError):
             load_trajectories_csv(tmp_path / "nope.csv")
 
     def test_python_path_when_native_unavailable(self, tmp_path, monkeypatch):
-        from bild_tpu import io as bio
+        from bild_jax import io as bio
         p = tmp_path / "ok.csv"
         self._write(p, ["# comment", "id,frame,x", "1,0,0.5", "1,2,1.5"])
         monkeypatch.setattr(bio.native, "get_lib", lambda: None)
@@ -108,20 +108,20 @@ class TestLoaderEdges:
 
 class TestPostprocEdges:
     def test_logLR_boundaries_constant_profile(self):
-        from bild_tpu.postproc import logLR_boundaries
+        from bild_jax.postproc import logLR_boundaries
         out = logLR_boundaries(Loopingprofile(np.zeros(6, dtype=int)),
                                _traj(6), _model())
         assert out.size == 0
 
     def test_optimize_boundary_max_iteration(self):
-        from bild_tpu.postproc import optimize_boundary
+        from bild_jax.postproc import optimize_boundary
         prof = Loopingprofile(np.array([0, 0, 1, 1, 0, 0]))
         with pytest.raises(RuntimeError, match="max_iteration"):
             optimize_boundary(prof, _traj(6), _model(), max_iteration=0)
 
     def test_optimize_boundary_batch_no_boundaries(self):
-        from bild_tpu.parallel.batch import stack_trajectories
-        from bild_tpu.postproc import optimize_boundary_batch
+        from bild_jax.parallel.batch import stack_trajectories
+        from bild_jax.postproc import optimize_boundary_batch
         batch = stack_trajectories([_traj(6, seed=1), _traj(6, seed=2)])
         profs = np.zeros((2, 6), dtype=int)
         out, elim = optimize_boundary_batch(profs, batch, _model())
@@ -129,8 +129,8 @@ class TestPostprocEdges:
         assert not elim.any()
 
     def test_optimize_boundary_batch_max_iteration(self):
-        from bild_tpu.parallel.batch import stack_trajectories
-        from bild_tpu.postproc import optimize_boundary_batch
+        from bild_jax.parallel.batch import stack_trajectories
+        from bild_jax.postproc import optimize_boundary_batch
         batch = stack_trajectories([_traj(6, seed=1)])
         profs = np.array([[0, 0, 1, 1, 0, 0]])
         with pytest.raises(RuntimeError, match="max_iteration"):
@@ -199,7 +199,7 @@ class TestBaseFallbacks:
 
 class TestStatsEdges:
     def test_dwell_times_input_forms(self):
-        from bild_tpu.stats import dwell_times
+        from bild_jax.stats import dwell_times
         # 1-d input; first interval is censored with duration (b-1)*dt
         d, c = dwell_times(np.array([0, 0, 0, 1, 1]), state=0, dt=2.0)
         np.testing.assert_allclose(d, [4.0])  # (3-1)*2
@@ -225,7 +225,7 @@ class TestStatsEdges:
         assert d.size == 0
 
     def test_KM_survival_without_anchor(self):
-        from bild_tpu.stats import KM_survival
+        from bild_jax.stats import KM_survival
         data = np.array([1.0, 2.0, 3.0, 4.0])
         cens = np.array([False, False, True, False])
         full = KM_survival(data, cens, S1at=0)
@@ -238,8 +238,8 @@ class TestStatsEdges:
 
 class TestCheckpointEdges:
     def _results(self, model, traj, ks=(0, 1), **kw):
-        from bild_tpu.amis.sampler import FixedkSampler
-        from bild_tpu.infer.core import SamplingResults
+        from bild_jax.amis.sampler import FixedkSampler
+        from bild_jax.infer.core import SamplingResults
         # max_fcomplete=0 forbids exhaustive enumeration so small-k samplers
         # stay steppable (exhaustive restore is covered by test_checkpoint)
         samplers = [FixedkSampler(traj, model, k, N=20, max_fev=100,
@@ -248,7 +248,7 @@ class TestCheckpointEdges:
         return SamplingResults(traj, model, 0.0, samplers)
 
     def test_degenerate_and_pending_informed_roundtrip(self, tmp_path):
-        from bild_tpu.utils import save_results, load_results
+        from bild_jax.utils import save_results, load_results
         model = _model()
         traj = Trajectory.create(
             np.array([0.1, 0.05, 6.0, 3.0, 4.0, 0.01, 5.0, 7.0]),
@@ -273,7 +273,7 @@ class TestCheckpointEdges:
         assert s0.step()                           # restored sampler steps
 
     def test_custom_model_roundtrip_and_nstates_mismatch(self, tmp_path):
-        from bild_tpu.utils import save_results, load_results
+        from bild_jax.utils import save_results, load_results
         model = _TinyModel(n=2)
         traj = _traj(6)
         res = self._results(model, traj, ks=(1,))
@@ -294,7 +294,7 @@ class TestCheckpointEdges:
 
 class TestDatasetResultsEdges:
     def _results(self, marginals=False):
-        from bild_tpu.parallel.dataset import DatasetResults
+        from bild_jax.parallel.dataset import DatasetResults
         ev = np.array([[0.0, -1.0], [-3.0, -0.5]])
         profs = [np.zeros((2, 4), dtype=int), np.ones((2, 3), dtype=int)]
         margs = None
@@ -317,7 +317,7 @@ class TestDatasetResultsEdges:
                 np.exp(o).sum(axis=0), np.ones(o.shape[1]), rtol=1e-12)
 
     def test_sample_dataset_rejects_ensemble_kwarg(self):
-        from bild_tpu.parallel import sample_dataset
+        from bild_jax.parallel import sample_dataset
         with pytest.raises(ValueError, match="ensemble"):
             sample_dataset(_model(), [_traj(6)], ensemble=4)
 
@@ -338,7 +338,7 @@ class _TinySegModel(_TinyModel):
 
 class TestSamplerViews:
     def _sampler(self, k=1, k_pad=None, **kw):
-        from bild_tpu.amis.sampler import FixedkSampler
+        from bild_jax.amis.sampler import FixedkSampler
         kw.setdefault("N", 16)
         kw.setdefault("max_fev", 200)
         kw.setdefault("max_fcomplete", 0)
@@ -385,7 +385,7 @@ class TestSamplerViews:
                            np.zeros((1, 3), dtype=int))
 
     def test_amis_propose_unpadded(self):
-        from bild_tpu.amis.sampler import amis_propose
+        from bild_jax.amis.sampler import amis_propose
         import jax.numpy as jnp
         s = self._sampler()
         ss, thetas, profiles = amis_propose(
@@ -394,7 +394,7 @@ class TestSamplerViews:
         np.testing.assert_allclose(np.asarray(ss.sum(-1)), 1.0, rtol=1e-6)
 
     def test_fused_steps_cache_hit(self):
-        from bild_tpu.amis.sampler import _make_fused_steps
+        from bild_jax.amis.sampler import _make_fused_steps
 
         def fake_logL(profiles, per_traj):
             import jax.numpy as jnp
@@ -404,7 +404,7 @@ class TestSamplerViews:
         assert _make_fused_steps(fake_logL, 8, 10) is first
 
     def test_stepwise_informed_injection(self):
-        from bild_tpu.amis.sampler import FixedkSampler
+        from bild_jax.amis.sampler import FixedkSampler
         model = _TinySegModel()
         traj = _traj(10, seed=5)
         s = FixedkSampler(traj, model, 1, N=8, max_fev=100, max_fcomplete=0,
@@ -421,12 +421,12 @@ class TestSamplerViews:
 
 class TestSegmentEdges:
     def test_batch_st_requires_exact_k(self):
-        from bild_tpu.infer.segment import profiles_to_st_batch
+        from bild_jax.infer.segment import profiles_to_st_batch
         with pytest.raises(AssertionError, match="exactly k"):
             profiles_to_st_batch(np.array([[0, 1, 0]]), k=1)  # 2 switches
 
     def test_unreachable_state_column(self):
-        from bild_tpu.infer.segment import dp_segment_all
+        from bild_jax.infer.segment import dp_segment_all
         # state 0 has no allowed predecessor: only 0->1 switches exist
         trans = np.array([[False, True], [False, False]])
         table = np.array([[1.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 1.0]])
@@ -436,7 +436,7 @@ class TestSegmentEdges:
         assert scores[2] == -np.inf
 
     def test_infeasible_k_exceeds_frames(self):
-        from bild_tpu.infer.segment import dp_segment, dp_segment_all_batch
+        from bild_jax.infer.segment import dp_segment, dp_segment_all_batch
         table = np.ones((2, 3))
         prof, score = dp_segment(table, k=5)
         assert prof is None and score == -np.inf
@@ -453,7 +453,7 @@ class TestSegmentEdges:
 # -- native loader build path --------------------------------------------------
 
 def test_native_build_compiles(tmp_path, monkeypatch):
-    from bild_tpu import native
+    from bild_jax import native
     monkeypatch.setattr(native, "_SO", str(tmp_path / "_loader_test.so"))
     assert native._build()
     assert (tmp_path / "_loader_test.so").exists()
@@ -469,7 +469,7 @@ def test_fused_mom_divergence_truncates_and_raises():
     pathological data; the host-side failure protocol is what's pinned here."""
     import dataclasses
     import jax.numpy as jnp
-    from bild_tpu.amis.sampler import FixedkSampler
+    from bild_jax.amis.sampler import FixedkSampler
 
     s = FixedkSampler(_traj(10, seed=3), _model(), 1, N=16, max_fev=200,
                       max_fcomplete=0, key=jax.random.key(3))
@@ -495,11 +495,11 @@ def test_fused_mom_divergence_truncates_and_raises():
 
 class TestFitEdges:
     def _rouse(self, err=0.1):
-        from bild_tpu.models import MultiStateRouse
+        from bild_jax.models import MultiStateRouse
         return MultiStateRouse(5, 1.0, 3.0, d=1, localization_error=err)
 
     def test_profile_coercion_forms_and_converged(self):
-        from bild_tpu.fit import fit_rouse
+        from bild_jax.fit import fit_rouse
         model = self._rouse()
         traj = model.trajectory_from_loopingprofile(
             np.zeros(12, dtype=int), key=jax.random.key(0))
@@ -513,7 +513,7 @@ class TestFitEdges:
         assert isinstance(fit.converged, bool)
 
     def test_fit_localization_mode_validation(self):
-        from bild_tpu.fit import fit_rouse
+        from bild_jax.fit import fit_rouse
         model = self._rouse()
         traj = model.trajectory_from_loopingprofile(
             np.zeros(10, dtype=int), key=jax.random.key(1))
@@ -522,12 +522,12 @@ class TestFitEdges:
                       fit_localization="banana", steps=2)
 
     def test_resolve_err0_requires_model_error_for_batch(self):
-        from bild_tpu.fit import _resolve_err0
+        from bild_jax.fit import _resolve_err0
         with pytest.raises(ValueError, match="localization_error"):
             _resolve_err0(self._rouse(err=None), None, 1)
 
     def test_calibrate_single_trajectory_default_key(self):
-        from bild_tpu.fit import calibrate_rouse
+        from bild_jax.fit import calibrate_rouse
         model = self._rouse()
         prof = np.zeros(16, dtype=int)
         prof[6:11] = 1
@@ -545,7 +545,7 @@ class TestFitEdges:
 
 class TestSmallResiduals:
     def test_csv_non_numeric_and_empty_value_rows(self, tmp_path):
-        from bild_tpu.io import load_trajectories_csv_python
+        from bild_jax.io import load_trajectories_csv_python
         p = tmp_path / "messy.csv"
         p.write_text("0,0,1.0\n0,1\n0,2,abc\n0,3,4.0\n")
         (t,) = load_trajectories_csv_python(p)
@@ -561,24 +561,24 @@ class TestSmallResiduals:
         assert np.asarray(prof, dtype=float).dtype == np.float64
 
     def test_choicesampler_default_rng(self):
-        from bild_tpu.infer.choice import ChoiceSampler
+        from bild_jax.infer.choice import ChoiceSampler
         cs = ChoiceSampler(np.array([-1.0, -2.0]), np.array([0.1, 0.2]),
                            n_steps=np.array([2.0, 2.0]), margin=0.0)
         assert set(np.unique(cs.evaluate())) <= {0, 1}
 
     def test_idtype_tracks_x64(self):
-        from bild_tpu.config import idtype
+        from bild_jax.config import idtype
         assert idtype() == np.int64      # conftest enables x64
 
     def test_gp_validation(self):
-        from bild_tpu.physics.gp import imaging, msd2C
+        from bild_jax.physics.gp import imaging, msd2C
         with pytest.raises(ValueError, match="exposure fraction"):
             imaging(f=1.5)
         with pytest.raises(ValueError, match="ss_order"):
             msd2C(lambda t: t, np.arange(3.0), ss_order=2)
 
     def test_rouse_bond_edge_cases(self):
-        from bild_tpu.physics.rouse import RouseModel
+        from bild_jax.physics.rouse import RouseModel
         # None entries and vacuous (l == r) bonds are skipped; 2-tuples get
         # default strength — all equivalent to the plain backbone chain here
         m_plain = RouseModel(5, 1.0, 2.0, d=1, dt=1.0)
@@ -592,7 +592,7 @@ class TestSmallResiduals:
                                    np.asarray(m_plain.B))
 
     def test_kalman_single_wrapper(self):
-        from bild_tpu.ops.kalman import msrouse_logL_batch, msrouse_logL_single
+        from bild_jax.ops.kalman import msrouse_logL_batch, msrouse_logL_single
         import jax.numpy as jnp
         model = MultiStateRouse_small()
         traj = Trajectory.create(np.array([1.0, 2.0, 1.5, 0.5]))
@@ -605,8 +605,8 @@ class TestSmallResiduals:
         np.testing.assert_allclose(np.asarray(single), np.asarray(batch[0]))
 
     def test_sqrt_operator_cache_hit(self):
-        from bild_tpu.ops import kalman_sqrt as ks
-        from bild_tpu.config import fdtype
+        from bild_jax.ops import kalman_sqrt as ks
+        from bild_jax.config import fdtype
         model = MultiStateRouse_small()
         first = ks._sqrt_operators(model.Sigs, model.C0s, fdtype())
         n_cached = len(ks._SQRT_OPS_CACHE)
@@ -616,16 +616,16 @@ class TestSmallResiduals:
                                       np.asarray(again[0]))
 
     def test_dataset_progress_bar(self):
-        from bild_tpu.parallel import sample_dataset
+        from bild_jax.parallel import sample_dataset
         res = sample_dataset(_model(), [_traj(8, seed=1), _traj(8, seed=2)],
                              k_max=1, steps_per_k=2, N=16,
                              show_progress=True, key=jax.random.key(4))
         assert res.evidence.shape == (2, 2)
 
     def test_exhaustive_checkpoint_roundtrip(self, tmp_path):
-        from bild_tpu.amis.sampler import FixedkSampler
-        from bild_tpu.infer.core import SamplingResults
-        from bild_tpu.utils import save_results, load_results
+        from bild_jax.amis.sampler import FixedkSampler
+        from bild_jax.infer.core import SamplingResults
+        from bild_jax.utils import save_results, load_results
         model = _model()
         traj = _traj(10, seed=7)
         samplers = [FixedkSampler(traj, model, k, N=16, max_fev=200,
@@ -646,7 +646,7 @@ class TestSmallResiduals:
 
 
 def MultiStateRouse_small():
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
     return MultiStateRouse(5, 1.0, 3.0, d=1, localization_error=0.1)
 
 
@@ -654,11 +654,11 @@ def MultiStateRouse_small():
 
 class TestSampleBatchGuards:
     def _batch(self, T=6):
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.parallel.batch import stack_trajectories
         return stack_trajectories([_traj(T, seed=1), _traj(T, seed=2)])
 
     def test_argument_validation(self, tmp_path):
-        from bild_tpu.parallel import sample_batch
+        from bild_jax.parallel import sample_batch
         m, batch = _model(), self._batch()
         with pytest.raises(ValueError, match="scout_steps"):
             sample_batch(m, batch, k_max=1, steps_per_k=4, N=16,
@@ -673,7 +673,7 @@ class TestSampleBatchGuards:
                          ensemble=10**9)
 
     def test_k_exceeding_T_skipped(self):
-        from bild_tpu.parallel import sample_batch
+        from bild_jax.parallel import sample_batch
         m, batch = _model(), self._batch(T=4)
         res = sample_batch(m, batch, k_max=5, steps_per_k=2, N=16,
                            key=jax.random.key(0))
@@ -689,14 +689,14 @@ class TestSampleBatchGuards:
 
 class TestMSRouseGuards:
     def test_ctor_localization_error_validation(self):
-        from bild_tpu.models import MultiStateRouse
+        from bild_jax.models import MultiStateRouse
         with pytest.raises(ValueError, match="localization_error"):
             MultiStateRouse(5, 1.0, 3.0, d=2,
                             localization_error=np.zeros(3))
 
     def test_noise_resolution_and_scalar_metadata(self):
-        from bild_tpu.models import MultiStateRouse
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.models import MultiStateRouse
+        from bild_jax.parallel.batch import stack_trajectories
         import jax.numpy as jnp
         m = MultiStateRouse(5, 1.0, 3.0, d=1)     # no model-level error
         t = _traj(6)                               # no trajectory metadata
@@ -714,7 +714,7 @@ class TestMSRouseGuards:
         np.testing.assert_allclose(m._get_noise(t_scalar), [0.25])
 
     def test_generate_batch_default_key(self):
-        from bild_tpu.models import MultiStateRouse
+        from bild_jax.models import MultiStateRouse
         m = MultiStateRouse(5, 1.0, 3.0, d=1, localization_error=0.1)
         batch = m.trajectories_from_loopingprofiles(
             np.zeros((2, 6), dtype=int))
@@ -724,7 +724,7 @@ class TestMSRouseGuards:
 # -- GGM banded validation / caches; CFC non-convergence; sample default key ----
 
 def _ggm(T_band=None, **kw):
-    from bild_tpu.models import GenericGaussianModel as GGM
+    from bild_jax.models import GenericGaussianModel as GGM
     return GGM([
         [(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.1, 0)],
         [(GGM.MSD_function_twoLocusRouse(G=0.2, J=1.0), 0.1, 0)],
@@ -765,7 +765,7 @@ class TestGGMBandedEdges:
 
 class TestCFCNonConvergence:
     def test_solve_marginals_single_raises(self):
-        from bild_tpu.amis.cfc import CFC
+        from bild_jax.amis.cfc import CFC
         cfc = CFC([[0, 1], [1, 0]])
         cfc.MOM_maxiter = 0                      # forbid any iteration
         # a target with genuinely coupled marginals cannot converge in 0 steps
@@ -791,7 +791,7 @@ class TestFitGGMEdges:
                 [("twoLocusRouse", p1, 0.0, 0)]]
 
     def _traj_ggm(self, profile, seed=0):
-        from bild_tpu.models import GenericGaussianModel as GGM
+        from bild_jax.models import GenericGaussianModel as GGM
         model = GGM([
             [(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0, noise2=0.01),
               0.0, 0)],
@@ -802,14 +802,14 @@ class TestFitGGMEdges:
             profile, rng=np.random.default_rng(seed))
 
     def test_ss_order_validation(self):
-        from bild_tpu.fit_ggm import make_ggm_nll
+        from bild_jax.fit_ggm import make_ggm_nll
         bad = [[("twoLocusRouse", dict(G=1.0, J=5.0, noise2=0.01), 0.0, 2)]]
         traj = self._traj_ggm(np.zeros(10, dtype=int))
         with pytest.raises(ValueError, match="ss_order"):
             make_ggm_nll(bad, traj, np.zeros(10, dtype=int))
 
     def test_single_trajectory_and_empty_rows(self):
-        from bild_tpu.fit_ggm import fit_ggm
+        from bild_jax.fit_ggm import fit_ggm
         prof = np.zeros(24, dtype=int)
         prof[8:16] = 1
         traj = self._traj_ggm(prof)
@@ -823,7 +823,7 @@ class TestFitGGMEdges:
         np.testing.assert_allclose(fit2.nll_trace, fit.nll_trace)
 
     def test_calibrate_single_trajectory_motion_blur_roundtrip(self):
-        from bild_tpu.fit_ggm import calibrate_ggm
+        from bild_jax.fit_ggm import calibrate_ggm
         prof = np.zeros(24, dtype=int)
         prof[8:16] = 1
         traj = self._traj_ggm(prof, seed=3)
@@ -833,7 +833,7 @@ class TestFitGGMEdges:
                                informed_init=False),
             fit_kwargs=dict(steps=3))
         # motion_blur_f survives the parameters -> spec round trip
-        from bild_tpu.fit_ggm import _spec_with_parameters
+        from bild_jax.fit_ggm import _spec_with_parameters
         spec2 = _spec_with_parameters(self._spec(motion_blur_f=0.5),
                                       cal.parameters)
         assert spec2[0][0][1]["motion_blur_f"] == 0.5
@@ -845,7 +845,7 @@ class TestFitGGMEdges:
 def test_logLR_boundaries_matches_direct_logL():
     """Each (boundary, direction) entry equals logL(moved) - logL(current),
     computed independently through model.logL (pins the batch layout)."""
-    from bild_tpu.postproc import logLR_boundaries
+    from bild_jax.postproc import logLR_boundaries
     model, traj = _model(), _traj(8, seed=4)
     states = np.array([0, 0, 0, 1, 1, 1, 0, 0])
     out = logLR_boundaries(Loopingprofile(states), traj, model)
@@ -866,7 +866,7 @@ def test_loopingprofile_repr():
 
 
 def test_batch_generative_requires_localization_error():
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
     m = MultiStateRouse(5, 1.0, 3.0, d=1)
     with pytest.raises(ValueError, match="localization_error"):
         m.trajectories_from_loopingprofiles(np.zeros((1, 6), dtype=int))
@@ -878,7 +878,7 @@ def test_batch_generative_requires_localization_error():
 
 class TestMultiprocessProtocolUnit:
     def _run(self, **kw):
-        from bild_tpu.parallel import make_mesh, sample_dataset
+        from bild_jax.parallel import make_mesh, sample_dataset
         kw.setdefault("k_max", 1)
         kw.setdefault("steps_per_k", 2)
         kw.setdefault("N", 16)
@@ -886,7 +886,7 @@ class TestMultiprocessProtocolUnit:
                               mesh=make_mesh(), **kw)
 
     def test_divergence_guard_raises(self, monkeypatch):
-        from bild_tpu.parallel import mesh as mesh_mod
+        from bild_jax.parallel import mesh as mesh_mod
         monkeypatch.setattr(mesh_mod, "is_multiprocess", lambda m: True)
         # process 0's hash never matches ours -> divergent launch
         monkeypatch.setattr(mesh_mod, "broadcast_from_process0",
@@ -895,7 +895,7 @@ class TestMultiprocessProtocolUnit:
             self._run(key=jax.random.key(0))
 
     def test_seed_broadcast_and_identity_run(self, monkeypatch):
-        from bild_tpu.parallel import mesh as mesh_mod
+        from bild_jax.parallel import mesh as mesh_mod
         monkeypatch.setattr(mesh_mod, "is_multiprocess", lambda m: True)
         seen = []
         def echo(x):
@@ -908,7 +908,7 @@ class TestMultiprocessProtocolUnit:
 
     def test_checkpoint_hit_unreadable_on_this_process(self, monkeypatch,
                                                        tmp_path):
-        from bild_tpu.parallel import mesh as mesh_mod
+        from bild_jax.parallel import mesh as mesh_mod
         monkeypatch.setattr(mesh_mod, "is_multiprocess", lambda m: True)
         calls = []
         def fake_broadcast(x):
@@ -923,7 +923,7 @@ class TestMultiprocessProtocolUnit:
 
     def test_nonzero_process_skips_checkpoint_writes(self, monkeypatch,
                                                      tmp_path):
-        from bild_tpu.parallel import mesh as mesh_mod
+        from bild_jax.parallel import mesh as mesh_mod
         monkeypatch.setattr(mesh_mod, "is_multiprocess", lambda m: True)
         monkeypatch.setattr(mesh_mod, "broadcast_from_process0", lambda x: x)
         monkeypatch.setattr(jax, "process_index", lambda *a, **k: 1)
@@ -935,8 +935,8 @@ class TestMultiprocessProtocolUnit:
 
 class TestBatchResiduals:
     def test_per_k_checkpoint_skips_infeasible_k(self, tmp_path):
-        from bild_tpu.parallel import sample_batch
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.parallel import sample_batch
+        from bild_jax.parallel.batch import stack_trajectories
         batch = stack_trajectories([_traj(4, seed=1), _traj(4, seed=2)])
         ck = str(tmp_path / "perk.npz")
         res = sample_batch(_model(), batch, k_max=5, steps_per_k=2, N=16,
@@ -948,8 +948,8 @@ class TestBatchResiduals:
         np.testing.assert_array_equal(res.evidence, res2.evidence)
 
     def test_mesh_padding_with_ensemble(self):
-        from bild_tpu.parallel import make_mesh, sample_batch
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.parallel import make_mesh, sample_batch
+        from bild_jax.parallel.batch import stack_trajectories
         batch = stack_trajectories([_traj(8, seed=s) for s in range(3)])
         res = sample_batch(_model(), batch, k_max=1, steps_per_k=2, N=16,
                            mesh=make_mesh(), ensemble=4,
@@ -961,7 +961,7 @@ class TestBatchResiduals:
 
 
 def test_dataset_log_marginal_posterior_best_k():
-    from bild_tpu.parallel.dataset import DatasetResults
+    from bild_jax.parallel.dataset import DatasetResults
     ev = np.array([[0.0, -1.0]])
     res = DatasetResults(k=np.arange(2), evidence=ev,
                          evidence_se=np.full((1, 2), 0.1),
@@ -993,11 +993,11 @@ class _NoSegFactorized(FactorizedModel):
 
 class TestBatchResiduals2:
     def _batch(self, T=8, B=2):
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.parallel.batch import stack_trajectories
         return stack_trajectories([_traj(T, seed=s) for s in range(B)])
 
     def test_stack_trajectories_validation(self):
-        from bild_tpu.parallel.batch import stack_trajectories
+        from bild_jax.parallel.batch import stack_trajectories
         with pytest.raises(ValueError, match="T_pad"):
             stack_trajectories([_traj(8)], T_pad=4)
         t2 = Trajectory.create(np.abs(np.random.default_rng(0)
@@ -1006,14 +1006,14 @@ class TestBatchResiduals2:
             stack_trajectories([_traj(6), t2])
 
     def test_marginals_accessor_requires_flag(self):
-        from bild_tpu.parallel import sample_batch
+        from bild_jax.parallel import sample_batch
         res = sample_batch(_model(), self._batch(), k_max=1, steps_per_k=2,
                            N=16, key=jax.random.key(0))
         with pytest.raises(ValueError, match="marginals=True"):
             res.log_marginal_posterior()
 
     def test_informed_cache_hit_and_uniform_fallback(self):
-        from bild_tpu.parallel import sample_batch
+        from bild_jax.parallel import sample_batch
         model, batch = _model(), self._batch()
         kw = dict(k_max=2, steps_per_k=2, N=16, informed_init=True,
                   key=jax.random.key(1))
@@ -1033,7 +1033,7 @@ class TestBatchResiduals2:
         assert np.isneginf(res4.evidence[:, 4:]).all()
 
     def test_checkpoint_with_ensemble_and_mom_maxiter(self, tmp_path):
-        from bild_tpu.parallel import sample_batch
+        from bild_jax.parallel import sample_batch
         ck = str(tmp_path / "perk_ens.npz")
         kw = dict(k_max=5, steps_per_k=2, N=16, ensemble=4, mom_maxiter=500,
                   key=jax.random.key(3))
@@ -1048,8 +1048,8 @@ class TestBatchResiduals2:
 
     def test_multiproc_seed_broadcast_and_write_skip(self, monkeypatch,
                                                      tmp_path):
-        from bild_tpu.parallel import make_mesh, sample_batch
-        from bild_tpu.parallel import mesh as mesh_mod
+        from bild_jax.parallel import make_mesh, sample_batch
+        from bild_jax.parallel import mesh as mesh_mod
         monkeypatch.setattr(mesh_mod, "is_multiprocess", lambda m: True)
         monkeypatch.setattr(mesh_mod, "broadcast_from_process0", lambda x: x)
         res = sample_batch(_model(), self._batch(), k_max=1, steps_per_k=2,

@@ -6,14 +6,14 @@ import jax
 import pytest
 from scipy import stats as sp_stats
 
-from bild_tpu.models import FactorizedModel
+from bild_jax.models import FactorizedModel
 
 
 # -- native loader: build-failure fallback --------------------------------
 
 def test_native_build_failure_falls_back(tmp_path, monkeypatch):
-    from bild_tpu import native
-    from bild_tpu import io
+    from bild_jax import native
+    from bild_jax import io
 
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_SO", str(tmp_path / "nonexistent.so"))
@@ -37,7 +37,7 @@ def test_native_build_failure_falls_back(tmp_path, monkeypatch):
 
 def test_native_stale_so_rebuilds(tmp_path, monkeypatch):
     """An _SO older than the source triggers a rebuild attempt."""
-    from bild_tpu import native
+    from bild_jax import native
 
     so = tmp_path / "stale.so"
     so.write_bytes(b"old")
@@ -54,7 +54,7 @@ def test_native_stale_so_rebuilds(tmp_path, monkeypatch):
 # -- mesh / distributed helper branches -----------------------------------
 
 def test_initialize_distributed_idempotent(monkeypatch):
-    from bild_tpu.parallel import mesh as m
+    from bild_jax.parallel import mesh as m
 
     class FakeDist:
         def is_initialized(self):
@@ -70,7 +70,7 @@ def test_initialize_distributed_idempotent(monkeypatch):
 
 
 def test_make_mesh_distributed_flag(monkeypatch):
-    from bild_tpu.parallel import mesh as m
+    from bild_jax.parallel import mesh as m
 
     called = {}
     monkeypatch.setattr(m, "initialize_distributed",
@@ -83,13 +83,13 @@ def test_make_mesh_distributed_flag(monkeypatch):
 
 
 def test_make_mesh_too_many_devices():
-    from bild_tpu.parallel import make_mesh
+    from bild_jax.parallel import make_mesh
     with pytest.raises(ValueError, match="devices"):
         make_mesh(shape=(1024, 1))
 
 
 def test_mesh_helpers_single_process():
-    from bild_tpu.parallel import (broadcast_from_process0, fetch_to_host,
+    from bild_jax.parallel import (broadcast_from_process0, fetch_to_host,
                                    is_multiprocess, make_mesh, shard_batch,
                                    feed_process_local)
 
@@ -130,7 +130,7 @@ def test_mesh_helpers_single_process():
 def test_fetch_to_host_without_mesh():
     """Fully-addressable arrays fetch without a mesh (the mesh is only
     needed for non-addressable multi-process arrays)."""
-    from bild_tpu.parallel.mesh import fetch_to_host
+    from bild_jax.parallel.mesh import fetch_to_host
 
     out = fetch_to_host(jax.numpy.ones(3))
     np.testing.assert_array_equal(out, np.ones(3))
@@ -166,8 +166,8 @@ def test_preproc_missing_frames_branches():
 def test_segment_guess_no_table_returns_none():
     """Models without a frame-factorized approximation return None from
     segment_guess (base-class branch)."""
-    from bild_tpu.models.base import MultiStateModel
-    from bild_tpu.trajectory import Trajectory
+    from bild_jax.models.base import MultiStateModel
+    from bild_jax.trajectory import Trajectory
 
     class Bare(MultiStateModel):
         def __init__(self):
@@ -189,7 +189,7 @@ def test_profiling_trace_writes_logdir(tmp_path):
     leaves a trace dump in the log directory."""
     import jax.numpy as jnp
 
-    from bild_tpu.utils.profiling import trace
+    from bild_jax.utils.profiling import trace
 
     with trace(str(tmp_path)):
         jnp.square(jnp.arange(16.0)).block_until_ready()

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from bild_tpu import Trajectory
-from bild_tpu.amis.sampler import FixedkSampler
+from bild_jax import Trajectory
+from bild_jax.amis.sampler import FixedkSampler
 
 
 class IIDGaussianModel:

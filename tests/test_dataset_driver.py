@@ -9,8 +9,8 @@ import pytest
 pytestmark = pytest.mark.slow  # heavy integration lane
 from scipy import stats as sp_stats
 
-from bild_tpu.models import FactorizedModel
-from bild_tpu.parallel import sample_dataset
+from bild_jax.models import FactorizedModel
+from bild_jax.parallel import sample_dataset
 
 
 def _ragged_set():

@@ -8,9 +8,9 @@ pytestmark = pytest.mark.slow  # heavy integration lane
 import jax
 import jax.numpy as jnp
 
-from bild_tpu import Trajectory
-from bild_tpu.models import FactorizedModel
-from bild_tpu.parallel import (make_mesh, pad_batch_rows, sample_batch,
+from bild_jax import Trajectory
+from bild_jax.models import FactorizedModel
+from bild_jax.parallel import (make_mesh, pad_batch_rows, sample_batch,
                                shard_batch, stack_trajectories)
 from scipy import stats as sp_stats
 
@@ -166,7 +166,7 @@ class TestVectorizedInformedInit:
         # informed init must seed feasible (b, k) pairs and leave results
         # finite; equivalence of the underlying DP is covered in
         # test_segment.py / the batched-DP parity test
-        from bild_tpu.parallel.batch import _informed_proposals_all_k
+        from bild_jax.parallel.batch import _informed_proposals_all_k
         model = _model()
         trajs = _trajs(rng, [10] * 4)
         batch = stack_trajectories(trajs)
@@ -184,7 +184,7 @@ class TestVectorizedInformedInit:
         assert np.all(np.isfinite(res.evidence))
 
     def test_batched_dp_matches_serial(self, rng):
-        from bild_tpu.infer.segment import dp_segment_all, dp_segment_all_batch
+        from bild_jax.infer.segment import dp_segment_all, dp_segment_all_batch
         B, n, T, kmax = 9, 3, 25, 5
         tables = rng.normal(size=(B, n, T))
         tables[1, :, 3] = np.nan
@@ -206,7 +206,7 @@ class TestVectorizedInformedInit:
                 assert np.sum(profs[k, b][1:] != profs[k, b][:-1]) == k
 
     def test_batched_st_matches_serial(self, rng):
-        from bild_tpu.infer.segment import profile_to_st, profiles_to_st_batch
+        from bild_jax.infer.segment import profile_to_st, profiles_to_st_batch
         profs = np.array([[0, 0, 1, 1, 2, 2, 0, 0],
                           [1, 1, 0, 0, 2, 2, 2, 1],
                           [0, 1, 1, 1, 1, 1, 2, 0]])

@@ -1,7 +1,7 @@
 """Multi-host entry point: a real 2-process jax.distributed CPU cluster
 (Gloo collectives), exercising `make_mesh(distributed=True)` and a
-process-spanning global reduction. TPU pods use the same entry point with
-no explicit coordinator args (the runtime supplies topology)."""
+process-spanning global reduction. A multi-host GPU cluster uses the same
+entry point."""
 import socket
 import subprocess
 import sys
@@ -21,7 +21,7 @@ _WORKER = textwrap.dedent("""
     if os.environ.get("COV") not in (None, "", "0"):
         sys.path.insert(0, os.path.join({repo!r}, "tools"))
         import atexit, simplecov
-        simplecov.start(os.path.join({repo!r}, "bild_tpu"))
+        simplecov.start(os.path.join({repo!r}, "bild_jax"))
         atexit.register(simplecov.dump_data, "cov_worker%d.json" % pid)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -29,7 +29,7 @@ _WORKER = textwrap.dedent("""
     import numpy as np
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from bild_tpu.parallel import make_mesh
+    from bild_jax.parallel import make_mesh
 
     mesh = make_mesh(axis_names=("data",), distributed=True,
                      coordinator_address=f"localhost:{{port}}",
@@ -37,7 +37,7 @@ _WORKER = textwrap.dedent("""
     assert len(jax.devices()) == 4, jax.devices()
     assert mesh.shape["data"] == 4
 
-    # per-process local shard -> global array -> global reduction over DCN
+    # per-process local shard -> global array -> cross-process reduction
     arr = jax.make_array_from_process_local_data(
         NamedSharding(mesh, P("data")), np.full((2,), pid + 1.0))
     total = jax.jit(jnp.sum, out_shardings=NamedSharding(mesh, P()))(arr)
@@ -70,7 +70,7 @@ _DATASET_SRC = textwrap.dedent("""
     import numpy as np
     import jax
     from scipy import stats as sp_stats
-    from bild_tpu.models import FactorizedModel
+    from bild_jax.models import FactorizedModel
 
     def build_dataset():
         # the magnitude draws use scipy's global RNG: seed it so every
@@ -102,7 +102,7 @@ _DATASET_WORKER = textwrap.dedent("""
     if os.environ.get("COV") not in (None, "", "0"):
         sys.path.insert(0, os.path.join({repo!r}, "tools"))
         import atexit, simplecov
-        simplecov.start(os.path.join({repo!r}, "bild_tpu"))
+        simplecov.start(os.path.join({repo!r}, "bild_jax"))
         atexit.register(simplecov.dump_data,
                         os.path.join(outdir, "cov_worker%d.json" % pid))
     import jax
@@ -110,7 +110,7 @@ _DATASET_WORKER = textwrap.dedent("""
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, {repo!r})
     import numpy as np
-    from bild_tpu.parallel import make_mesh, sample_dataset
+    from bild_jax.parallel import make_mesh, sample_dataset
 
     exec(open(os.path.join(outdir, "dataset_src.py")).read())
 
@@ -193,7 +193,7 @@ def test_two_process_sample_dataset(tmp_path):
     ns = {}
     exec(_DATASET_SRC, ns)
     import jax
-    from bild_tpu.parallel import sample_dataset
+    from bild_jax.parallel import sample_dataset
     model, trajs = ns["build_dataset"]()
     ref = sample_dataset(model, trajs, key=jax.random.key(7),
                          **ns["DATASET_KW"])
@@ -246,7 +246,7 @@ _SHARD_SRC = textwrap.dedent("""
     import numpy as np
     import jax
     from scipy import stats as sp_stats
-    from bild_tpu.models import FactorizedModel
+    from bild_jax.models import FactorizedModel
 
     def build_model():
         return FactorizedModel([sp_stats.maxwell(scale=0.1),
@@ -288,7 +288,7 @@ _SHARD_WORKER = textwrap.dedent("""
     if os.environ.get("COV") not in (None, "", "0"):
         sys.path.insert(0, os.path.join({repo!r}, "tools"))
         import atexit, simplecov
-        simplecov.start(os.path.join({repo!r}, "bild_tpu"))
+        simplecov.start(os.path.join({repo!r}, "bild_jax"))
         atexit.register(simplecov.dump_data,
                         os.path.join(outdir, "cov_shard_worker%d.json" % pid))
     import jax
@@ -296,8 +296,8 @@ _SHARD_WORKER = textwrap.dedent("""
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, {repo!r})
     import numpy as np
-    from bild_tpu.io import load_trajectories_csv
-    from bild_tpu.parallel import make_mesh, sample_dataset_sharded
+    from bild_jax.io import load_trajectories_csv
+    from bild_jax.parallel import make_mesh, sample_dataset_sharded
 
     exec(open(os.path.join(outdir, "shard_src.py")).read())
 
@@ -375,8 +375,8 @@ def test_two_process_sharded_ingestion(tmp_path):
             np.testing.assert_array_equal(res0[f], res1[f], err_msg=f)
 
     # single-process full-data reference: load BOTH shards, no mesh
-    from bild_tpu.io import load_trajectories_csv
-    from bild_tpu.parallel import sample_dataset_sharded
+    from bild_jax.io import load_trajectories_csv
+    from bild_jax.parallel import sample_dataset_sharded
     import jax
     t0, i0 = load_trajectories_csv(str(tmp_path / "shard0.csv"),
                                    return_ids=True)

@@ -1,5 +1,5 @@
 """
-Gradient-based parameter calibration (`bild_tpu.fit`) — a capability the
+Gradient-based parameter calibration (`bild_jax.fit`) — a capability the
 reference cannot offer (its kernel is compiled Cython,
 ``bild/src/MSRouse_logL.pyx``): exactness of the differentiable dynamics
 map, gradient correctness vs finite differences, and MLE recovery of
@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bild_tpu.fit import (FitResult, _dynamics_from_params, _spectral_consts,
+from bild_jax.fit import (FitResult, _dynamics_from_params, _spectral_consts,
                           fit_rouse, make_rouse_nll)
-from bild_tpu.models import MultiStateRouse
+from bild_jax.models import MultiStateRouse
 
 
 def _model(N=8, D=1.0, k=5.0, err=0.1, d=3):
@@ -127,7 +127,7 @@ def test_fit_frozen_localization():
 def test_calibrate_rouse_alternation():
     """Hard-EM alternation: inference profiles feed the fit, parameters
     move toward truth, and the final results/model are consistent."""
-    from bild_tpu.fit import CalibrationResult, calibrate_rouse
+    from bild_jax.fit import CalibrationResult, calibrate_rouse
 
     D_true, k_true = 1.0, 5.0
     model = _model(N=6, D=D_true, k=k_true, err=0.1)
@@ -196,7 +196,7 @@ def test_ragged_profiles_from_dataset_interface():
 def test_heterogeneous_localization_error_raises():
     """Per-trajectory metadata with DIFFERENT errors must raise, not be
     silently collapsed to trajectory 0's value."""
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.trajectory import make_trajectory
 
     model = MultiStateRouse(5, 1.0, 5.0, d=1)      # no model-level error
     rng = np.random.default_rng(0)
@@ -226,8 +226,8 @@ def test_calibrate_metadata_only_error():
     """calibrate_rouse with NO model-level localization error: homogeneous
     per-trajectory metadata must be resolved into the sampling model
     (lockstep mode needs it) and survive into the calibrated model."""
-    from bild_tpu.fit import calibrate_rouse
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.fit import calibrate_rouse
+    from bild_jax.trajectory import make_trajectory
 
     gen = _model(N=5, D=1.0, k=5.0, err=0.1, d=1)
     prof = np.zeros(30, dtype=int)
@@ -281,7 +281,7 @@ def test_weighted_nll_one_hot_equals_hard():
 def test_calibrate_soft_mode_and_init():
     """Soft mode runs end-to-end (posterior-weighted M-step); init
     validation; init='model' skips the neutral pre-fit."""
-    from bild_tpu.fit import calibrate_rouse
+    from bild_jax.fit import calibrate_rouse
 
     model = _model(N=5, D=1.0, k=5.0, err=0.1, d=1)
     prof = np.zeros(30, dtype=int)
@@ -312,8 +312,8 @@ def test_calibrate_dataset_engine():
     bucketing + chunking), the ragged MAP profiles feed the fit, and
     parameters move toward truth. Soft mode / TrajectoryBatch input are
     rejected for this engine."""
-    from bild_tpu.fit import calibrate_rouse
-    from bild_tpu.parallel import stack_trajectories
+    from bild_jax.fit import calibrate_rouse
+    from bild_jax.parallel import stack_trajectories
 
     D_true, k_true = 1.0, 5.0
     model = _model(N=5, D=D_true, k=k_true, err=0.1, d=1)

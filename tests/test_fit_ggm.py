@@ -1,5 +1,5 @@
 """
-GGM MSD-parameter calibration (`bild_tpu.fit_ggm`) — a capability the
+GGM MSD-parameter calibration (`bild_jax.fit_ggm`) — a capability the
 reference lacks (its GGM takes externally-fitted frozen MSDs,
 ``bild/models.py:536-606``): bit-parity of the differentiable objective
 against the exact `logL_host` oracle, gradient correctness, parameter
@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-from bild_tpu.fit import fit_ggm, make_ggm_nll
-from bild_tpu.models import GenericGaussianModel as GGM
-from bild_tpu.trajectory import make_trajectory
+from bild_jax.fit import fit_ggm, make_ggm_nll
+from bild_jax.models import GenericGaussianModel as GGM
+from bild_jax.trajectory import make_trajectory
 
 
 def _mixed_case():
@@ -210,8 +210,8 @@ def test_calibrate_ggm_dataset_engine():
     """engine='dataset': the GGM E-step runs through sample_dataset
     (ragged bucketing + chunking) and per-state parameters move toward
     truth; a TrajectoryBatch input is rejected for this engine."""
-    from bild_tpu.fit import calibrate_ggm
-    from bild_tpu.parallel import stack_trajectories
+    from bild_jax.fit import calibrate_ggm
+    from bild_jax.parallel import stack_trajectories
 
     true0, true1 = dict(G=1.0, J=5.0), dict(G=0.2, J=1.0)
     model = GGM([
@@ -264,7 +264,7 @@ def test_calibrate_ggm_alternation():
     calibrated run's frame accuracy matches inference AT THE TRUE
     parameters on the same data/budget (measured 0.861 true vs 0.864
     calibrated)."""
-    from bild_tpu.fit import GGMCalibrationResult, calibrate_ggm
+    from bild_jax.fit import GGMCalibrationResult, calibrate_ggm
 
     true0, true1 = dict(G=1.0, J=5.0), dict(G=0.2, J=1.0)
     model = GGM([

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import bild_tpu as bild
-from bild_tpu.models import GenericGaussianModel as GGM
-from bild_tpu.trajectory import Trajectory
+import bild_jax as bild
+from bild_jax.models import GenericGaussianModel as GGM
+from bild_jax.trajectory import Trajectory
 
 
 def _mixed_model():
@@ -57,7 +57,7 @@ class TestSegmentHooks:
 
     @pytest.mark.slow
     def test_informed_init_paths(self, rng):
-        from bild_tpu.parallel import sample_batch, stack_trajectories
+        from bild_jax.parallel import sample_batch, stack_trajectories
         model = _mixed_model()
         true = np.zeros(12, dtype=int)
         true[6:] = 1
@@ -124,7 +124,7 @@ class TestIntervalTableParity:
 
 class TestLockstep:
     def test_lockstep_fns_match_host(self, rng):
-        from bild_tpu.parallel.batch import TrajectoryBatch
+        from bild_jax.parallel.batch import TrajectoryBatch
         model = _mixed_model()
         T, B = 12, 3
         data = rng.normal(size=(B, T, 2))
@@ -168,7 +168,7 @@ class TestGGMDataset:
     @pytest.mark.slow
     def test_sample_batch_with_ggm(self, rng):
         # GGM is now lockstep-capable: dataset mode end-to-end
-        from bild_tpu.parallel import sample_batch, stack_trajectories
+        from bild_jax.parallel import sample_batch, stack_trajectories
         model = GGM([
             [(GGM.MSD_function_twoLocusRouse(G=1.0, J=20.0), 0.0, 0)],
             [(GGM.MSD_function_twoLocusRouse(G=1.0, J=0.5), 0.0, 0)],
@@ -314,7 +314,7 @@ class TestBandedTables:
 
     @pytest.mark.slow
     def test_lockstep_banded(self, rng):
-        from bild_tpu.parallel import sample_batch, stack_trajectories
+        from bild_jax.parallel import sample_batch, stack_trajectories
         T, band = 96, 32
         exact, banded = self._models(band)
         truth = np.zeros(T, dtype=int)
@@ -348,7 +348,7 @@ def test_sparse_table_sums_match_dense(rng):
     all-T gather-sum on segment profiles, and honors the NaN contracts
     (out-of-range state; more than _SPARSE_KCAP intervals)."""
     import jax.numpy as jnp
-    from bild_tpu.models.ggm import (
+    from bild_jax.models.ggm import (
         _profile_table_sum, _profile_table_sum_sparse,
         _profile_table_sum_banded, _profile_table_sum_banded_sparse,
         _SPARSE_KCAP)

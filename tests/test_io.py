@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from bild_tpu import io as bio
-from bild_tpu import native
+from bild_jax import io as bio
+from bild_jax import native
 
 
 def _write_csv(path, two_locus=False):

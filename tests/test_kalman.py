@@ -1,13 +1,16 @@
-"""Parity tests: batched TPU-style Kalman kernel vs the sequential float64
-NumPy oracle (analog of the compiled-vs-python equality test, reference
-tests/test_bild.py:168-173; tolerance per BASELINE.md: 1e-6 rtol)."""
-import numpy as np
+"""Parity tests: batched Kalman kernel vs the sequential float64 NumPy
+oracle (analog of the compiled-vs-python equality test, reference
+tests/test_bild.py:168-173; tolerance per BASELINE.md: 1e-6 rtol in float64,
+1e-5 in float32)."""
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from bild_tpu import Trajectory
-from bild_tpu.models import MultiStateRouse
-from bild_tpu.ops.oracle import msrouse_logL_numpy
-from bild_tpu.ops.kalman import msrouse_logL_batch
+from bild_jax import Trajectory
+from bild_jax.models import MultiStateRouse
+from bild_jax.ops.oracle import msrouse_logL_numpy
+from bild_jax.ops.kalman import msrouse_logL_batch
 
 
 def _arrays(model):
@@ -124,3 +127,68 @@ class TestKalmanParity:
         got = _batch_logL(model, traj, profiles)
         assert np.isfinite(got[0])
         assert np.all(np.isnan(got[1:]))
+
+
+@pytest.fixture
+def x32():
+    """float32 for one test: the production dtype on an accelerator."""
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+@pytest.mark.parametrize("gaps", [False, True], ids=["dense", "gaps"])
+@pytest.mark.parametrize("errors", [[0.1], [0.08, 0.1, 0.12]],
+                         ids=["q1", "q3"])
+@pytest.mark.parametrize("n", [2, 3])
+def test_f32_scan_matches_f64_oracle(x32, rng, n, errors, gaps):
+    """The float32 XLA scan at the production width (N=20, d=3) stays
+    within 1e-5 relative of the float64 oracle: full-precision products
+    and the per-step re-symmetrization keep the recursion at the f32
+    storage floor."""
+    model = MultiStateRouse(20, 1.0, 5.0, d=3,
+                            looppositions=(None, (0, -1), (0, 10))[:n],
+                            localization_error=np.array(errors * (3 // len(errors))))
+    assert model.Bs.dtype == jnp.float32
+    truth = (np.arange(100) // 30) % n
+    traj = model.trajectory_from_loopingprofile(
+        truth, missing_frames=10 if gaps else None, key=jax.random.key(n))
+    profiles = np.concatenate([truth[None], _random_profiles(rng, 7, 100, n)])
+    got = np.asarray(model.logL_batch(profiles, traj), dtype=np.float64)
+    want = _oracle_logL(model, traj, profiles)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_f32_scan_long_trajectory(x32, rng):
+    """T=1000, three states: the centre-of-mass mode's growing variance is
+    kept out of the float32 recursion (`_filter_Sigs`), which holds it at
+    1e-5 relative of the float64 oracle."""
+    model = MultiStateRouse(20, 1.0, 5.0, d=3,
+                            looppositions=(None, (0, -1), (0, 10)),
+                            localization_error=0.1)
+    truth = (np.arange(1000) // 150) % 3
+    traj = model.trajectory_from_loopingprofile(truth, key=jax.random.key(5))
+    profiles = np.concatenate([truth[None], _random_profiles(rng, 3, 1000, 3)])
+    got = np.asarray(model.logL_batch(profiles, traj), dtype=np.float64)
+    np.testing.assert_allclose(got, _oracle_logL(model, traj, profiles),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("measurement", ["end2end", "monomer0"])
+def test_filter_sigs_leave_likelihood_unchanged(rng, measurement):
+    """Dropping the centre-of-mass noise is exact when the measurement does
+    not see that mode, and skipped when it does."""
+    N = 12
+    w = "end2end" if measurement == "end2end" else np.eye(N)[0]
+    model = MultiStateRouse(N, 1.0, 4.0, d=2, measurement=w,
+                            localization_error=0.2)
+    changed = not np.allclose(model._filter_Sigs, model.Sigs)
+    assert changed == (measurement == "end2end")
+    traj = model.trajectory_from_loopingprofile(
+        (np.arange(40) // 10) % 2, key=jax.random.key(1))
+    profiles = _random_profiles(rng, 6, 40, 2)
+    np.testing.assert_allclose(_batch_logL(model, traj, profiles),
+                               _oracle_logL(model, traj, profiles),
+                               rtol=1e-10)

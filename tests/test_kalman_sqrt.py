@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from bild_tpu.models import MultiStateRouse
-from bild_tpu.ops.kalman import msrouse_logL_batch
-from bild_tpu.ops.kalman_sqrt import msrouse_logL_sqrt
-from bild_tpu.ops.oracle import msrouse_logL_numpy
+from bild_jax.models import MultiStateRouse
+from bild_jax.ops.kalman import msrouse_logL_batch
+from bild_jax.ops.kalman_sqrt import msrouse_logL_sqrt
+from bild_jax.ops.oracle import msrouse_logL_numpy
 
 
 def _parity_case(rng, P=8, T=100):

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import scipy.stats
 
-import bild_tpu as bild
-from bild_tpu import Trajectory, make_trajectory
-from bild_tpu.models import MultiStateRouse, FactorizedModel, GenericGaussianModel
+import bild_jax as bild
+from bild_jax import Trajectory, make_trajectory
+from bild_jax.models import MultiStateRouse, FactorizedModel, GenericGaussianModel
 
 
 class TestModels:
@@ -106,7 +106,7 @@ class TestModels:
 
     def test_ggm_in_sampler(self, rng):
         # GGM must work as the model inside FixedkSampler (host logL path)
-        from bild_tpu.amis import FixedkSampler
+        from bild_jax.amis import FixedkSampler
         model = GenericGaussianModel([
             [(GenericGaussianModel.MSD_function_powerlaw(G=0.01, a=0.5), 0.0, 1)],
             [(GenericGaussianModel.MSD_function_powerlaw(G=1.0, a=1.0), 0.0, 1)],

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 from scipy import stats
 
-from bild_tpu import Trajectory
-from bild_tpu.amis import FixedkSampler
-from bild_tpu.amis.cfc import CFC, cfc_logpmf, cfc_estimate, cfc_sample
-from bild_tpu.amis.dirichlet import (dirichlet_logpdf, dirichlet_estimate,
+from bild_jax import Trajectory
+from bild_jax.amis import FixedkSampler
+from bild_jax.amis.cfc import CFC, cfc_logpmf, cfc_estimate, cfc_sample
+from bild_jax.amis.dirichlet import (dirichlet_logpdf, dirichlet_estimate,
                                      dirichlet_sample_masked)
-from bild_tpu.models import FactorizedModel
+from bild_jax.models import FactorizedModel
 
 
 def _padded_case(rng, k=2, K=6, N=40, n=3):

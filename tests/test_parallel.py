@@ -8,10 +8,10 @@ from scipy import stats as sp_stats
 
 pytestmark = pytest.mark.slow  # heavy integration lane
 
-import bild_tpu as bild
-from bild_tpu.models import FactorizedModel, MultiStateRouse
-from bild_tpu.parallel import make_mesh, stack_trajectories, sample_batch
-from bild_tpu import Trajectory
+import bild_jax as bild
+from bild_jax.models import FactorizedModel, MultiStateRouse
+from bild_jax.parallel import make_mesh, stack_trajectories, sample_batch
+from bild_jax import Trajectory
 
 
 def _factorized_batch(B=8, T=8):
@@ -188,7 +188,7 @@ def test_sample_batch_rouse():
 def test_sample_batch_k_exceeding_T_is_skipped():
     """k >= T samplers short-circuit to -inf evidence (reference degeneracy
     guard, `bild/amis.py:641-648`) inside the lockstep driver too."""
-    from bild_tpu.parallel import sample_batch, stack_trajectories
+    from bild_jax.parallel import sample_batch, stack_trajectories
 
     model = FactorizedModel([sp_stats.maxwell(scale=0.1),
                              sp_stats.maxwell(scale=1)], d=1)
@@ -212,7 +212,7 @@ def test_sample_batch_ensemble():
     import os
     import tempfile
 
-    from bild_tpu.parallel import sample_batch, stack_trajectories
+    from bild_jax.parallel import sample_batch, stack_trajectories
 
     model = MultiStateRouse(5, 1.0, 5.0, d=1, localization_error=0.1)
     prof = np.zeros(30, dtype=int)

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import bild_tpu as bild
-from bild_tpu.profiles import st2profile, count_switches
+import bild_jax as bild
+from bild_jax.profiles import st2profile, count_switches
 
 
 class TestLoopingprofile:

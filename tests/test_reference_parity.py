@@ -43,7 +43,7 @@ def _specs(GGM):
 
 
 def test_ggm_logL_matches_reference_exactly(ref_bild):
-    from bild_tpu.models import GenericGaussianModel as OurGGM
+    from bild_jax.models import GenericGaussianModel as OurGGM
     import noctiluca  # the shim
 
     RefGGM = ref_bild.models.GenericGaussianModel
@@ -75,9 +75,9 @@ def test_rouse_kernel_matches_reference_exactly(ref_bild):
     selected by cython_imports' fallback) through the shimmed ``rouse.Model``
     and compare against both our f64 numpy oracle and our device kernel on
     identical inputs."""
-    from bild_tpu.models import MultiStateRouse as OurMSR
-    from bild_tpu.ops.oracle import msrouse_logL_numpy
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.models import MultiStateRouse as OurMSR
+    from bild_jax.ops.oracle import msrouse_logL_numpy
+    from bild_jax.trajectory import make_trajectory
     import noctiluca  # the shim
 
     N, D, k, d = 12, 1.0, 3.0, 3
@@ -114,8 +114,8 @@ def test_rouse_generative_roundtrip_through_reference(ref_bild):
     """Sample from the REFERENCE MultiStateRouse generative path (which runs
     the shimmed ``rouse.Model.conf_ss``/``evolve``) and score with OUR device
     model: the generating profile must beat the constant profiles."""
-    from bild_tpu.models import MultiStateRouse as OurMSR
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.models import MultiStateRouse as OurMSR
+    from bild_jax.trajectory import make_trajectory
 
     N, T = 16, 80
     ref_model = ref_bild.models.MultiStateRouse(
@@ -139,8 +139,8 @@ def test_ggm_generative_roundtrip_through_reference(ref_bild):
     """Sample from the REFERENCE generative model, score with OUR device
     model: the true profile must beat the constants (cross-implementation
     sanity in the other direction)."""
-    from bild_tpu.models import GenericGaussianModel as OurGGM
-    from bild_tpu.trajectory import make_trajectory
+    from bild_jax.models import GenericGaussianModel as OurGGM
+    from bild_jax.trajectory import make_trajectory
 
     RefGGM = ref_bild.models.GenericGaussianModel
     ref_model = RefGGM(_specs(RefGGM))

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from bild_tpu.physics import RouseModel, two_locus_msd
+from bild_jax.physics import RouseModel, two_locus_msd
 
 
 def _model(**kw):

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax
 
-import bild_tpu as bild
-from bild_tpu import Trajectory
-from bild_tpu.infer.segment import dp_segment
-from bild_tpu.models import MultiStateRouse, FactorizedModel
-from bild_tpu.parallel import sample_batch
+import bild_jax as bild
+from bild_jax import Trajectory
+from bild_jax.infer.segment import dp_segment
+from bild_jax.models import MultiStateRouse, FactorizedModel
+from bild_jax.parallel import sample_batch
 
 
 def test_dp_segment_matches_bruteforce(rng):
@@ -60,7 +60,7 @@ def test_segment_guess_models(rng):
     assert np.all(theta[1:] != theta[:-1])
 
     # GGM derives frame scores from its interval-table diagonal
-    from bild_tpu.models import GenericGaussianModel
+    from bild_jax.models import GenericGaussianModel
     ggm = GenericGaussianModel([
         [(GenericGaussianModel.MSD_function_powerlaw(), 0.0, 1)],
         [(GenericGaussianModel.MSD_function_powerlaw(G=2.0), 0.0, 1)],
@@ -91,7 +91,7 @@ def test_informed_init_improves_long_T():
 
 @pytest.mark.slow
 def test_informed_init_adaptive():
-    from bild_tpu.amis import FixedkSampler
+    from bild_jax.amis import FixedkSampler
     model = MultiStateRouse(10, 1, 5, d=1, localization_error=0.1)
     true = np.zeros(200, dtype=int)
     true[60:140] = 1
@@ -123,7 +123,7 @@ def test_dp_segment_handles_neg_inf():
 
 
 def test_dp_segment_all_consistent(rng):
-    from bild_tpu.infer.segment import dp_segment_all
+    from bild_jax.infer.segment import dp_segment_all
     table = rng.normal(size=(3, 15))
     profs, scores = dp_segment_all(table, 4)
     for k in range(5):

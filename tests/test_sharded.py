@@ -1,5 +1,5 @@
 """
-Process-local sharded ingestion (`bild_tpu.parallel.sharded`) — the
+Process-local sharded ingestion (`bild_jax.parallel.sharded`) — the
 single-process properties. The real 2-process disjoint-shard run is
 covered by ``tests/test_distributed.py::test_two_process_sharded_ingestion``
 (slow lane).
@@ -9,8 +9,8 @@ import pytest
 
 import jax
 
-from bild_tpu.models import FactorizedModel, MultiStateRouse
-from bild_tpu.parallel import (sample_batch, sample_dataset_sharded,
+from bild_jax.models import FactorizedModel, MultiStateRouse
+from bild_jax.parallel import (sample_batch, sample_dataset_sharded,
                                stack_trajectories)
 
 
@@ -104,7 +104,7 @@ def test_row_keys_position_invariance():
                        key=base, row_keys=row_keys)
 
     perm = np.array([3, 1, 5, 0, 2, 4])
-    from bild_tpu.parallel.batch import TrajectoryBatch
+    from bild_jax.parallel.batch import TrajectoryBatch
     batch_p = TrajectoryBatch(data=batch.data[perm], valid=batch.valid[perm],
                               lengths=batch.lengths[perm])
     rk_p = jax.vmap(lambda i: jax.random.fold_in(base, i))(
@@ -121,7 +121,7 @@ def test_informed_arrays_injection_matches_host_path(factorized_setup):
     model, trajs = factorized_setup
     sub = [t for t in trajs if len(t) == 8]
     batch = stack_trajectories(sub)
-    from bild_tpu.parallel.batch import (_informed_proposals_all_k_impl)
+    from bild_jax.parallel.batch import (_informed_proposals_all_k_impl)
     K1 = 4
     inf = _informed_proposals_all_k_impl(model, batch, K1, 2, batch.T)
     assert inf is not None

@@ -1,7 +1,7 @@
 """Trajectory container tests (noctiluca-subset surface, SURVEY.md 2.16)."""
 import numpy as np
 
-from bild_tpu import Trajectory, make_trajectory
+from bild_jax import Trajectory, make_trajectory
 
 
 def test_create_1d():

@@ -38,7 +38,7 @@ def _hist(evals):
 def _run_pair(model, truths, batch, fixed_kw, adaptive_kw, key_fixed,
               key_adaptive):
     import jax
-    from bild_tpu.parallel import sample_batch, sample_batch_adaptive
+    from bild_jax.parallel import sample_batch, sample_batch_adaptive
 
     # warm both programs (compiles excluded from the timed run)
     res_f = sample_batch(model, batch, key=key_fixed, **fixed_kw)
@@ -84,7 +84,7 @@ def _run_pair(model, truths, batch, fixed_kw, adaptive_kw, key_fixed,
 
 def config3(adaptive_kw):
     import jax
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
 
     rng = np.random.default_rng(3)
     model = MultiStateRouse(20, 1.0, 5.0, d=3, localization_error=0.1)
@@ -101,7 +101,7 @@ def config3(adaptive_kw):
 
 def config4(adaptive_kw):
     import jax
-    from bild_tpu.models import MultiStateRouse
+    from bild_jax.models import MultiStateRouse
 
     rng = np.random.default_rng(4)
     model = MultiStateRouse(20, 1.0, 5.0, d=3,
@@ -125,9 +125,9 @@ def config5(adaptive_kw, postproc=True):
     (one-shot: wall includes compiles, amortized over the dataset —
     same protocol as bench_e2e config 5)."""
     import jax
-    from bild_tpu.models import MultiStateRouse
-    from bild_tpu.parallel import sample_batch, sample_batch_adaptive
-    from bild_tpu.postproc import optimize_boundary_batch
+    from bild_jax.models import MultiStateRouse
+    from bild_jax.parallel import sample_batch, sample_batch_adaptive
+    from bild_jax.postproc import optimize_boundary_batch
 
     rng = np.random.default_rng(5)
     model = MultiStateRouse(20, 1.0, 5.0, d=3, localization_error=0.1)
@@ -192,7 +192,7 @@ def main():
     ap.add_argument("--samplesize", type=int, default=4096)
     args = ap.parse_args()
 
-    from bild_tpu.config import enable_compilation_cache
+    from bild_jax.config import enable_compilation_cache
     enable_compilation_cache()
 
     adaptive_kw = dict(k_max=4, N=128, informed_init=True,

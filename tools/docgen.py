@@ -216,7 +216,7 @@ def autodoc(modname, members):
 # --------------------------------------------------------------------------
 
 PAGE = """<!doctype html><html><head><meta charset="utf-8">
-<title>{{ title }} — bild_tpu</title><style>
+<title>{{ title }} — bild_jax</title><style>
 body { font-family: -apple-system, 'Segoe UI', sans-serif; margin: 0;
        color: #1a202c; line-height: 1.55; }
 .wrap { max-width: 60rem; margin: 0 auto; padding: 1rem 2rem 4rem; }
@@ -244,7 +244,7 @@ table { border-collapse: collapse; margin: 1rem 0; font-size: .92rem; }
 th, td { border: 1px solid #e2e8f0; padding: .35rem .7rem; text-align: left; }
 th { background: #ebf8ff; color: #2c5282; }
 </style></head><body>
-<nav><a href="index.html">bild_tpu</a><a href="migration.html">Migrating from bild</a><a href="api.html">API reference</a></nav>
+<nav><a href="index.html">bild_jax</a><a href="migration.html">Migrating from bild</a><a href="api.html">API reference</a></nav>
 <div class="wrap">
 {{ body }}
 </div></body></html>

@@ -17,7 +17,7 @@ lockstep schedule, and additionally
     found profile?), and the evidence gap in units of the AMIS SEs.
 
 Prints one JSON row per miss and a summary verdict. Runs wherever JAX runs
-(designed for the TPU chip; CPU x64 works but is ~10 min).
+(designed for an accelerator; CPU x64 works but is ~10 min).
 
 Usage: python tools/forensics_config4.py [--out /tmp/config4_forensics.json]
 """
@@ -41,9 +41,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from bild_tpu.models import MultiStateRouse
-    from bild_tpu.parallel import sample_batch
-    from bild_tpu.trajectory import Trajectory
+    from bild_jax.models import MultiStateRouse
+    from bild_jax.parallel import sample_batch
+    from bild_jax.trajectory import Trajectory
     from bench_e2e import _truth_profiles
 
     rng = np.random.default_rng(4)

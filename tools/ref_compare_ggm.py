@@ -41,7 +41,7 @@ jax.config.update('jax_enable_x64', True)
 def make_config6_data():
     """Exactly the dataset of bench_e2e.config6 (rng seed 6, B=64, T=100)."""
     from bench_e2e import _truth_profiles
-    from bild_tpu.models import GenericGaussianModel as GGM
+    from bild_jax.models import GenericGaussianModel as GGM
 
     rng = np.random.default_rng(6)
     model = GGM([

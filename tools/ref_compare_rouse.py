@@ -7,7 +7,7 @@ This closes BASELINE.md's north-star check "Full AMIS posterior, one
 trajectory (<= 5 switches): MAP profile matches reference sampler" by
 actually running the reference sampler — not a transcription — on this host
 (the shimmed ``rouse.Model`` is float64 numpy with the same spectral
-construction as ``bild_tpu/physics/rouse.py``; kernel-level parity is
+construction as ``bild_jax/physics/rouse.py``; kernel-level parity is
 asserted bit-tight in tests/test_reference_parity.py).
 
 Both samplers are stochastic (AMIS evidence SE ~0.1-0.5 nats), so agreement
@@ -41,7 +41,7 @@ K_MAX = 4
 def make_data(n):
     """n trajectories from OUR generative model, truths with 0..4 switches."""
     from bench_e2e import _truth_profiles
-    import bild_tpu as bt
+    import bild_jax as bt
 
     model = bt.models.MultiStateRouse(N_MONOMERS, 1.0, 5.0, d=3,
                                       localization_error=0.1)
@@ -58,7 +58,7 @@ def main(argv=None):
     ap.add_argument('--out', default='/tmp/ref_rouse_cmp.jsonl')
     args = ap.parse_args(argv)
 
-    import bild_tpu as bt
+    import bild_jax as bt
     our_model, truths, trajs = make_data(args.n)
 
     import bild  # reference

@@ -5,4 +5,4 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.
 if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
-from bild_tpu.physics.gp import MSDfun, imaging  # noqa: F401,E402
+from bild_jax.physics.gp import MSDfun, imaging  # noqa: F401,E402

@@ -3,9 +3,9 @@ Minimal stand-in for the ``rouse`` package: only what the reference ``bild``
 uses (interface inventory SURVEY.md section 2.17).
 
 ``twoLocusMSD`` delegates to the repo's validated closed form
-(``bild_tpu/physics/rouse.py:178``). ``Model`` is a float64 numpy
+(``bild_jax/physics/rouse.py:178``). ``Model`` is a float64 numpy
 implementation of the used API surface — the same spectral construction as
-``bild_tpu.physics.rouse.RouseModel`` but host-side f64 throughout, so the
+``bild_jax.physics.rouse.RouseModel`` but host-side f64 throughout, so the
 reference's python kernel (``bild/src/MSRouse_logL_py.py``) runs at its
 native precision:
 
@@ -23,8 +23,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
-from bild_tpu.physics.rouse import two_locus_msd as twoLocusMSD  # noqa: F401,E402
-from bild_tpu.physics.rouse import _build_laplacian  # noqa: E402
+from bild_jax.physics.rouse import two_locus_msd as twoLocusMSD  # noqa: F401,E402
+from bild_jax.physics.rouse import _build_laplacian  # noqa: E402
 
 
 class Model:

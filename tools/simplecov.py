@@ -1,7 +1,7 @@
 """
 Minimal line-coverage collector for environments without the ``coverage``
 package (this image has no network access). Uses Python 3.12's
-``sys.monitoring`` LINE events, restricted to files under ``bild_tpu/``;
+``sys.monitoring`` LINE events, restricted to files under ``bild_jax/``;
 non-package code locations are DISABLEd at first hit, so overhead stays
 bounded.
 
@@ -196,7 +196,7 @@ def start_from_env():
     exit. Call from conftest before importing the package."""
     if os.environ.get("COV") not in (None, "", "0"):
         here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        start(os.path.join(here, "bild_tpu"))
+        start(os.path.join(here, "bild_jax"))
         atexit.register(_report_at_exit)
 
 
@@ -209,7 +209,7 @@ def main(argv):
         print("usage: simplecov.py merge OUT.txt DATA.json [DATA.json ...]")
         return 2
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    _prefix = os.path.join(here, "bild_tpu") + os.sep
+    _prefix = os.path.join(here, "bild_jax") + os.sep
     for p in argv[2:]:
         load_data(p)
     show_missing = os.environ.get("COV_MISSING") not in (None, "", "0")
